@@ -15,14 +15,22 @@ SRC = os.path.join(HERE, "rocjpeg_entropy.cpp")
 
 
 def build(verbose: bool = True) -> str:
+    # Build to a private name, then rename: concurrent first imports (test
+    # workers) never load a half-written library.
+    tmp = f"{OUT}.{os.getpid()}.tmp"
     cmd = [
         "g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
         "-fno-exceptions",
-        SRC, "-o", OUT,
+        SRC, "-o", tmp,
     ]
     if verbose:
         print("+", " ".join(cmd))
-    subprocess.run(cmd, check=True)
+    try:
+        subprocess.run(cmd, check=True)
+        os.replace(tmp, OUT)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
     return OUT
 
 

@@ -1,4 +1,4 @@
-// librocjpeg_tpu.so — the C ABI of the TPU-native JPEG decode framework.
+// librocjpeg_tpu.so — the C ABI of the JAX JPEG decode framework.
 //
 // Implements the nine rocJPEG entry points (reference api/rocjpeg.h:204-343,
 // dispatch logic of src/rocjpeg_api.cpp) by embedding a CPython interpreter

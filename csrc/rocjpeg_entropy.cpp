@@ -1,6 +1,6 @@
 // Native host entropy decoder for rocjpeg_tpu.
 //
-// TPU-native equivalent of the reference's native CPU front-end: rocJPEG
+// The equivalent of the reference's native CPU front-end: rocJPEG
 // parses on the CPU (src/rocjpeg_parser.cpp) and entropy-decodes in the VCN
 // ASIC; here baseline Huffman decode runs on host cores, parallelized over
 // restart-interval segments (the DC predictor resets at every RSTn marker,
@@ -312,7 +312,7 @@ int rjt_decode_scan(const RjtScanJob* jobp) {
 // ---------------------------------------------------------------------------
 // Native segment packer for the on-device wave entropy decoder
 // (rocjpeg_tpu/ops/device_entropy.py). Splits a scan at RSTn markers,
-// removes byte stuffing, and writes each segment's bytes into the TPU-ready
+// removes byte stuffing, and writes each segment's bytes into the device-ready
 // (R, n_words, 128)-uint32 transposed word matrix: lane l = r*128 + li,
 // byte i of the lane lands in word i>>2 at big-endian byte position within
 // the little-endian uint32 — i.e. byte offset
@@ -487,9 +487,9 @@ long rjt_pack_rows(const uint8_t* data, long n, uint8_t* out, long lane0,
 // segment is word-aligned and the stream carries no per-lane padding).
 // The H2D payload this produces is the true entropy-coded size (~2x
 // smaller than the lane-padded tensor, whose word count is bucketed to the
-// LONGEST segment); the padded (R, n_words, 128) layout the wave kernel
-// wants is reconstructed on-device by a gather (ops/device_entropy.py
-// _expand_words). Returns segments written.
+// LONGEST segment); the wave reads each lane's words at word_off[lane] + j
+// (ops/device_entropy.py, kernels/wave_triton.py). Returns segments
+// written.
 long rjt_pack_dense(const uint8_t* data, long n, uint8_t* out,
                     const int32_t* word_off, long max_segs) {
   const uint8_t* s = data;
@@ -553,7 +553,7 @@ long rjt_pack_dense(const uint8_t* data, long n, uint8_t* out,
 // over the Huffman symbol stream (no coefficient output — only DC predictor
 // tracking and bit-position bookkeeping) records the exact bit offset and
 // DC predictor values at every `record_every`-th MCU boundary. Those records
-// are "virtual RSTn markers": the TPU wave decodes the segments between them
+// are "virtual RSTn markers": the device wave decodes the segments between them
 // in parallel, and a cheap on-device fixup adds the recorded DC predictor to
 // each lane's DC coefficients (DC is cumulative, so a lane decoded with
 // predictor 0 is off by exactly its entry predictor).
@@ -669,8 +669,8 @@ long unstuff_scan(const uint8_t* data, long n, uint8_t* clean) {
 // clean stream plus per-record (MCU index, bit offset, DC predictors).
 // Records are SYMBOL-BALANCED: one at MCU 0, then at the first MCU
 // boundary after every >= min_symbols decoded symbols. Balanced lanes keep
-// the wave kernel's VMEM tile and emission buffers bounded by the record
-// interval instead of by the densest fixed-MCU window (a real photo's
+// the wave's loop trip count bounded by the record interval instead of by
+// the densest fixed-MCU window (a real photo's
 // dense regions can be ~16x the average), and equalize per-lane work.
 struct RjtIndexJob {
   const uint8_t* scan;
@@ -692,7 +692,7 @@ struct RjtIndexJob {
   int32_t* dc_out;    // out: capacity n_records * 3 (component-major)
   int32_t* mcu_idx;   // out: capacity n_records (record r starts this MCU)
   int32_t* sym_count; // out: capacity n_records (symbols in lane r — EXACT,
-                      //      so the wave sizes its emission buffers tight)
+                      //      so the wave's symbol-loop bound is tight)
   long n_records;     // in: capacity of the record arrays
   long n_found;       // out: records written
 };
@@ -997,7 +997,7 @@ long rjt_index_scan2(RjtIndexJob* ja, RjtIndexJob* jb,
 // one 8-lane vector op, and the chain's LUT load becomes one VPGATHERDD
 // whose latency is paid once per eight symbols. Streams at different block
 // phases never branch — DC/AC/EOB/block/MCU transitions are masked blends,
-// exactly like the TPU wave's lane transitions. Rare events (records,
+// exactly like the device wave's lane transitions. Rare events (records,
 // level-2 LUT fallback, lane completion) drop to scalar per-lane fixups.
 // ---------------------------------------------------------------------------
 
@@ -1942,7 +1942,7 @@ struct RjtGeomJob {
 
 // Pass 1 of the native lane bookkeeping: max lane bit-span and max lane
 // symbol count across all kept records — the packer sizes the dense word
-// budget and the wave's emission buffers from these BEFORE allocating the
+// budget and the wave's symbol-loop bound from these BEFORE allocating the
 // geometry arrays.
 void rjt_record_maxes(const RjtGeomJob* jobs, long n_jobs,
                       int64_t* max_bits_out, int64_t* max_syms_out) {

@@ -1,10 +1,10 @@
-/* rocjpeg_tpu C API — drop-in C ABI for the TPU-native JPEG decode framework.
+/* rocjpeg_tpu C API — drop-in C ABI for the JAX JPEG decode framework.
  *
  * Exposes the same nine entry points, enum values, and struct layouts as the
  * rocJPEG C API (reference: api/rocjpeg.h:204-343) so existing call sites
  * recompile against this header unchanged. Behavioral difference: decoded
  * channels are written to caller-allocated HOST buffers (the decode device
- * is a TPU reached through the embedded Python/JAX runtime, not HIP-visible
+ * is an accelerator reached through the embedded Python/JAX runtime, not HIP-visible
  * VRAM), honoring the caller's per-channel pitch.
  *
  * Link against librocjpeg_tpu.so (see csrc/rocjpeg_capi.cpp; built by
@@ -103,7 +103,7 @@ typedef struct {
     } target_dimension;
 } RocJpegDecodeParams;
 
-/* Backends (rocjpeg.h:176-179). HARDWARE maps to the TPU compute path;
+/* Backends (rocjpeg.h:176-179). HARDWARE maps to the device compute path;
  * HYBRID returns ROCJPEG_STATUS_NOT_IMPLEMENTED, as in the reference
  * (src/rocjpeg_decoder.cpp:84-88). */
 typedef enum {
@@ -148,7 +148,7 @@ RocJpegStatus ROCJPEGAPI rocJpegDecode(RocJpegHandle handle,
                                        RocJpegImage *destination);
 
 /* Decode a batch of parsed streams in one call; the batch is shape-grouped
- * and each group runs as one batched TPU program. */
+ * and each group runs as one batched device program. */
 RocJpegStatus ROCJPEGAPI rocJpegDecodeBatched(RocJpegHandle handle,
                                               RocJpegStreamHandle *jpeg_stream_handles,
                                               int batch_size,

@@ -1,25 +1,25 @@
-"""rocjpeg_tpu — a TPU-native JPEG decode framework.
+"""rocjpeg_tpu — a JAX JPEG decode framework for accelerators.
 
-A from-scratch rebuild of the capability surface of AMD's rocJPEG SDK
-(reference at /root/reference) for TPUs: everything rocJPEG delegates to the
-VCN fixed-function ASIC — Huffman entropy decode, dequantization, 8x8 IDCT,
-chroma upsampling, color conversion — is implemented in software
-(JAX/XLA/Pallas on-device; C++ on the host), exposed through a session API
-mirroring the 9-function C API (api/rocjpeg.h:204-343).
+A from-scratch rebuild of the capability surface of AMD's rocJPEG SDK:
+everything rocJPEG delegates to the VCN fixed-function ASIC — Huffman
+entropy decode, dequantization, 8x8 IDCT, chroma upsampling, color
+conversion — is implemented in software (JAX/XLA and a Pallas kernel on the
+device; C++ on the host), exposed through a session API mirroring the
+9-function C API (api/rocjpeg.h:204-343).
 """
 
 import os as _os
 
-# The wave entropy decoder is a large XLA program (minutes of cold compile on
-# a remote-compile TPU); persist compiled executables across processes.
-# Opt out with ROCJPEG_TPU_NO_COMPILE_CACHE=1 or point the dir elsewhere.
-if not _os.environ.get("ROCJPEG_TPU_NO_COMPILE_CACHE"):
+# Persistent compile cache. JAX reads JAX_COMPILATION_CACHE_DIR itself when
+# it is set; otherwise the cache lives in one fixed directory of the
+# checkout (listed in .gitignore), so every process of a run shares it.
+CACHE_DIR = _os.environ.get("JAX_COMPILATION_CACHE_DIR") or _os.path.join(
+    _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+    ".jax_cache")
+if "JAX_COMPILATION_CACHE_DIR" not in _os.environ:
     import jax as _jax
 
-    _jax.config.update(
-        "jax_compilation_cache_dir",
-        _os.environ.get("JAX_COMPILATION_CACHE_DIR", "/tmp/rjt_xla_cache"))
-    _jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+    _jax.config.update("jax_compilation_cache_dir", CACHE_DIR)
 
 from .status import RocJpegError, Status, get_error_name
 from .types import (Backend, ChromaSubsampling, CropRectangle, DecodedImage,

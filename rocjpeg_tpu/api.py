@@ -1,4 +1,4 @@
-"""Session API — the TPU-native mirror of the 9-function rocJPEG C API.
+"""Session API — the mirror of the 9-function rocJPEG C API.
 
 Mapping (reference api/rocjpeg.h:204-343, src/rocjpeg_api.cpp):
 
@@ -21,7 +21,7 @@ IDCT, upsampling, color conversion, and layout on device. Where the
 reference chunks a batch by ``num_jpeg_cores`` (decoder.cpp:208-218), this
 framework groups the whole batch by shape (the JpegStreamKey idea,
 vaapi_decoder.h:223-265) and decodes each group as one batched XLA program —
-the TPU's "cores" are the lanes of a single fused kernel.
+the device's "cores" are the lanes of a single fused kernel.
 """
 
 from __future__ import annotations
@@ -157,6 +157,10 @@ class Decoder:
                 f"device_id {device_id} out of range ({len(devices)} devices)")
         self._device = devices[device_id]
         self._spec = spec or types_spec_for_device(self._device)
+        if self._device.platform == "gpu":
+            # The device path needs the native packer and index walker;
+            # never fall back to the Python host path on an accelerator.
+            host_decode.require_native()
         if device_entropy not in ("on", "off", "auto"):
             raise RocJpegError(Status.INVALID_PARAMETER,
                                f"bad device_entropy mode {device_entropy!r}")
@@ -170,8 +174,8 @@ class Decoder:
         self._lock = threading.Lock()
         # Self-throttling async pipeline: decode_batched returns without
         # waiting for the device, but keeps at most ``max_inflight`` wave
-        # submissions outstanding (deeper queues can stall the runtime
-        # scheduler; two is enough to fully overlap host and device work).
+        # submissions outstanding (two is enough to overlap host and
+        # device work, and bounds in-flight device memory).
         # ``_outstanding`` counts DISPATCHED programs, reserved before the
         # dispatch happens — a reservation, not a post-hoc append — so the
         # bound holds under concurrent callers (two threads appending after
@@ -314,9 +318,8 @@ class Decoder:
         import os
         # Default 768 symbols/lane: fewer virtual lanes means fewer walker
         # record events, less per-lane host bookkeeping, and a smaller lane
-        # grid on device. Measured on the 4K DRI=0 corpora: ~equal at 256
-        # vs 768 for the wave, ~+15% e2e on the host-bound mug leg at 768;
-        # past ~1k the per-lane VMEM emission buffers stop paying.
+        # grid on device; more lanes give the GPU wave more parallelism.
+        # Not yet tuned on a GPU host (ROADMAP A3).
         return max(1, int(os.environ.get("ROCJPEG_TPU_VSYMS", "768")))
 
     def _group_device_eligible(self, plist, virtual_k=None) -> bool:
@@ -385,10 +388,7 @@ class Decoder:
 
     def synchronize(self) -> None:
         """Drain every outstanding async submission from this handle — the
-        ``hipStreamSynchronize`` analog (src/rocjpeg_decoder.cpp:183,:290).
-        Call before process exit in benchmark-style drivers: tearing the
-        runtime down with programs still queued can wedge the device for
-        the next client on this platform."""
+        ``hipStreamSynchronize`` analog (src/rocjpeg_decoder.cpp:183,:290)."""
         while True:
             with self._lock:
                 tok = self._inflight.pop(0) if self._inflight else None
@@ -414,7 +414,7 @@ class Decoder:
         api/rocjpeg.h:104-107): the caller owns the memory and hands the
         decoder per-channel buffers plus row pitches; the decoder writes
         each decoded plane honoring the pitch (copy semantics of
-        src/rocjpeg_decoder.cpp:372-399, here host-side since the TPU is
+        src/rocjpeg_decoder.cpp:372-399, here host-side since the device is
         reached through JAX rather than pointer-visible VRAM).
 
         Accepts a single (stream, dest) pair or parallel sequences. Each
@@ -505,9 +505,7 @@ class Decoder:
                 # Throttle BEFORE dispatching each chunk: reserve a device-
                 # program slot (draining the oldest submission if both are
                 # taken) so at most max_inflight programs are ever queued,
-                # across all paths and threads — a third concurrent wave-
-                # kernel instance can stall the runtime scheduler (see
-                # kernels/wave_pallas.py), and for multi-chunk batches this
+                # across all paths and threads; for multi-chunk batches this
                 # also bounds in-flight HBM to ~max_inflight chunks.
                 self._acquire_slot()
                 registered = False

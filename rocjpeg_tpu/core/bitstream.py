@@ -1,6 +1,6 @@
 """Host-side JPEG bitstream (JFIF) marker parser.
 
-TPU-native rebuild of the reference's CPU parser
+Rebuild of the reference's CPU parser
 (``src/rocjpeg_parser.{h,cpp}``): parses a baseline-DCT JPEG into the
 parameter set the decode engine consumes. Behavioral parity notes:
 

@@ -10,7 +10,7 @@ which is the parallel axis exploited by the multithreaded C++ decoder
 
 Output layout: per component, an int16 array of shape
 (blocks_h, blocks_w, 64) in *natural* (row-major) coefficient order, padded
-to whole MCUs — the exact input the TPU dequant+IDCT stage consumes.
+to whole MCUs — the exact input the device dequant+IDCT stage consumes.
 
 This Python implementation is the correctness oracle; the C++ extension
 (rocjpeg_tpu.runtime.native) is the production host path and must match it

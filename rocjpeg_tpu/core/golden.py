@@ -2,7 +2,7 @@
 
 Composes parser → entropy decode → dequant+IDCT → postprocess entirely in
 numpy. This is the correctness oracle the reference never had (its CI says
-"Unit tests - TBD", .jenkins/common.groovy:60): the TPU pipeline must match
+"Unit tests - TBD", .jenkins/common.groovy:60): the device pipeline must match
 it bit-for-bit, and it is itself validated against PIL/libjpeg in
 tests/test_golden.py (luma bit-exact on every corpus image — both implement
 the standard fixed-point islow IDCT contract).
@@ -26,7 +26,14 @@ from .zigzag import dezigzag
 def decode_planes(params: JpegStreamParams) -> Tuple[np.ndarray, ...]:
     """Entropy decode + dequant + IDCT → MCU-padded uint8 sample planes
     (y, u, v); u/v are None for single-component streams."""
-    coeff_planes = entropy.decode_scan(params)
+    return planes_from_coefficients(params, entropy.decode_scan(params))
+
+
+def planes_from_coefficients(params: JpegStreamParams,
+                             coeff_planes) -> Tuple[np.ndarray, ...]:
+    """Dequant + IDCT of per-component natural-order coefficient planes
+    (as ``entropy.decode_scan`` or the native ``decode_scan`` return them)
+    → MCU-padded uint8 sample planes (y, u, v)."""
     out = []
     for ci, coeffs in enumerate(coeff_planes):
         qid = params.components[ci].quantiser_table_selector

@@ -6,7 +6,7 @@ zigzag scan order. ``NATURAL_TO_ZIGZAG`` is the inverse permutation.
 The reference never dezigzags on the CPU — it forwards file-order quant
 tables to the VCN ASIC (src/rocjpeg_parser.cpp:217-246). In this framework
 the host entropy decoder scatters coefficients straight into natural order
-(one LUT lookup at write time) so the TPU dequant+IDCT stage sees dense
+(one LUT lookup at write time) so the device dequant+IDCT stage sees dense
 natural-order 8x8 blocks and needs no gather.
 """
 

@@ -10,7 +10,7 @@ The decode workload has two real parallel axes (SURVEY.md §2.4):
 
 Collectives only arise at chroma/luma resharding seams and for metrics —
 steady-state decode is embarrassingly parallel, so shardings are laid out
-to keep everything lane-local on ICI.
+to keep everything lane-local.
 """
 
 from __future__ import annotations

@@ -1,12 +1,12 @@
-"""Multi-host (pod-slice) utilities.
+"""Multi-host utilities.
 
 The reference has no distributed backend at all (SURVEY.md §5) — its
 jpegDecodePerf partitions files across *threads* (jpegdecodeperf.cpp:245-252).
-Lifted to a pod: each host runs its own input pipeline over its shard of the
-corpus, decodes on its local chips via :class:`MeshDecoder` over the global
+Lifted to hosts: each host runs its own input pipeline over its shard of
+the corpus, decodes on its local devices via :class:`MeshDecoder` over the global
 mesh, and only throughput metrics cross hosts (one psum at the end) — the
-layout that makes >=90% linear scaling an input-pipeline problem, not a
-collective problem.
+layout that makes scaling an input-pipeline problem, not a collective
+problem.
 """
 
 from __future__ import annotations

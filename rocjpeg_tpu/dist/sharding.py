@@ -1,11 +1,11 @@
 """Sharded batched decode over a device mesh.
 
-The TPU-native replacement for the reference's multi-device story (one
-DRM render node per handle, src/rocjpeg_vaapi_decoder.cpp:365-422): a batch
-of images is sharded over the ``data`` mesh axis and, optionally, each
-image's block rows over ``space``; one XLA program decodes the whole batch
-with all chips working in parallel. No NCCL analog is needed — XLA inserts
-any resharding collectives, and they ride ICI.
+The replacement for the reference's multi-device story (one DRM render
+node per handle, src/rocjpeg_vaapi_decoder.cpp:365-422): a batch of images
+is sharded over the ``data`` mesh axis and, optionally, each image's block
+rows over ``space``; one XLA program decodes the whole batch with every
+device working in parallel. The wave needs no collectives (segments and
+images are independent); XLA inserts any resharding the transform needs.
 """
 
 from __future__ import annotations
@@ -19,7 +19,8 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..core.bitstream import JpegStreamParams
-from ..pipeline import bucket_batch, output_pitches, stack_group_inputs
+from ..pipeline import (bucket_batch, output_pitches, quant_rows,
+                        stack_group_inputs)
 from ..runtime import host_decode
 from ..status import RocJpegError, Status
 from ..types import (ChromaSubsampling, CropRectangle, DecodedImage,
@@ -63,64 +64,70 @@ def _sharded_wave_decode(mesh: Mesh, geom, n_lanes: int, n_words: int,
                          max_steps: int, css: CSS, width: int, height: int,
                          output_format: OutputFormat, crop: Optional[tuple]):
     """The fully on-device distributed decode: shard_map over the 'data'
-    axis where each shard runs the wave entropy decoder on its images'
-    restart segments and the fused transform on its coefficient shard. No
-    collectives are needed — segments and images are independent — so
-    scaling is purely the input pipeline (SURVEY.md §2.4).
+    axis where each shard runs the platform's wave
+    (``device_entropy.build_wave``) on its images' restart segments and the
+    fused transform on its coefficient shard. No collectives are needed —
+    segments and images are independent — so scaling is purely the input
+    pipeline (SURVEY.md §2.4).
 
     ``geom`` is the SHARD-LOCAL GroupGeometry (batch = images per shard);
-    n_lanes is the shard-local lane count."""
-    try:
-        from jax import shard_map
-    except ImportError:  # older JAX
-        from jax.experimental.shard_map import shard_map
+    n_lanes is the shard-local lane count. Each shard reads its own slice
+    of the dense word stream (see :func:`_pack_mesh_lanes`)."""
     from ..ops import device_entropy as de
     from ..pipeline import build_decode_fn
 
-    wave = de.build_wave_decoder(geom, n_lanes, n_words, max_steps)
+    wave = de.build_wave(geom, n_lanes, n_words, max_steps)
     decode = build_decode_fn(css, width, height, geom.ncomp >= 3,
                              output_format, crop)
-    comp_slices = []
-    for ci in range(len(geom.comp_base)):
-        base = geom.comp_base[ci]
-        nxt = (geom.comp_base[ci + 1] if ci + 1 < len(geom.comp_base)
-               else geom.total_blocks)
-        bw = geom.blocks_w[ci]
-        comp_slices.append((base, nxt, bw, (nxt - base) // bw))
 
-    def shard_fn(words, img_base, mcu_start, mcu_count, lentab, values,
-                 qy, qu, qv):
-        coeffs, err = wave(words, img_base, mcu_start, mcu_count,
+    def shard_fn(dense, word_off, img_base, mcu_start, mcu_count, lentab,
+                 values, qy, qu, qv):
+        coeffs, err = wave(dense, word_off, img_base, mcu_start, mcu_count,
                            lentab, values)
-        per_img = coeffs.reshape(geom.batch, geom.total_blocks * 64)
-        comps = []
-        for base, nxt, bw, bh in comp_slices:
-            comps.append(per_img[:, base * 64:nxt * 64]
-                         .reshape(geom.batch, bh, bw, 64))
+        comps = list(de.unflatten_coefficients(coeffs, geom, None))
         while len(comps) < 3:
             comps.append(jnp.zeros((geom.batch, 1, 1, 64), jnp.int16))
         outs = decode(comps[0], comps[1], comps[2], qy, qu, qv)
         return outs + (err,)
 
-    lane_spec = P("data")
-    rep = P()
-    import inspect
-    sig = inspect.signature(shard_map).parameters
-    kwargs = {}
-    if "check_rep" in sig:
-        kwargs["check_rep"] = False
-    elif "check_vma" in sig:
-        # The wave's while_loop carry starts from freshly-created (hence
-        # replicated) zeros but becomes data-varying inside the loop; the
-        # VMA checker rejects that even though the computation is purely
-        # per-shard, so disable it.
-        kwargs["check_vma"] = False
-    fn = shard_map(
+    data = P("data")
+    # The wave's while_loop carry starts from freshly-created (hence
+    # replicated) zeros but becomes data-varying inside the loop; the VMA
+    # checker rejects that even though the computation is purely
+    # per-shard, so disable it.
+    fn = jax.shard_map(
         shard_fn, mesh=mesh,
-        in_specs=(lane_spec, lane_spec, lane_spec, lane_spec, rep, rep,
-                  P("data"), P("data"), P("data")),
-        out_specs=P("data"), **kwargs)
+        in_specs=(data, data, data, data, data, P(), P(), data, data, data),
+        out_specs=data, check_vma=False)
     return jax.jit(fn)
+
+
+def _pack_mesh_lanes(padded, n_dev: int, per_dev: int, geom_local):
+    """Pack a padded batch for the 'data'-sharded wave: device d decodes
+    images [d*per_dev, (d+1)*per_dev) from its own equal-length slice of
+    one dense word stream. Every device gets lanes_per_image * per_dev
+    lanes with shard-local word offsets and image bases.
+
+    Returns (dense (n_dev*W,) u32, {lane array name: (n_dev*L,) i32},
+    n_words, max_steps)."""
+    from ..ops import device_entropy as de
+
+    geo = de._geometry_rows(padded, 0)
+    lanes_per_image = de._bucket(max(g[0] for g in geo), de.lane_quantum())
+    packs = [de.pack_segments(padded[d * per_dev:(d + 1) * per_dev],
+                              geom_local.total_blocks,
+                              lanes_per_image=lanes_per_image)
+             for d in range(n_dev)]
+    n_words = max(p.n_words for p in packs)
+    width = max(max(len(p.dense), int(p.word_off.max()) + n_words)
+                for p in packs)
+    dense = np.zeros(n_dev * width, np.uint32)
+    for d, p in enumerate(packs):
+        dense[d * width:d * width + len(p.dense)] = p.dense
+    lanes = {name: np.concatenate([getattr(p, name) for p in packs])
+             for name in ("word_off", "img_base", "mcu_start", "mcu_count")}
+    max_steps = max(de.max_steps_bound(geom_local, p) for p in packs)
+    return dense, lanes, n_words, max_steps
 
 
 class MeshDecoder:
@@ -140,8 +147,8 @@ class MeshDecoder:
         self.mesh = mesh or mesh_lib.make_mesh(space=space)
         from ..api import Decoder  # host-side helpers (validation, info)
         self._host = Decoder.__new__(Decoder)
-        from ..types import TpuDecodeSpec
-        self._host._spec = TpuDecodeSpec(name="tpu-mesh")
+        from ..types import spec_for_device
+        self._host._spec = spec_for_device(self.mesh.devices.flat[0])
         self._host._device = None
         self.spec = self._host._spec
         self._device_entropy = device_entropy
@@ -232,7 +239,7 @@ class MeshDecoder:
     # ------------------------------------------------------------------
     def decode_batched_local(self, streams: Sequence, params=None,
                              global_arrays: bool = False):
-        """Pod-scale decode: every process calls this with its OWN local
+        """Multi-host decode: every process calls this with its OWN local
         streams (equal counts per process, one shape/table group); the
         global batch is their concatenation in process order. No image
         bytes ever cross hosts — the jpegDecodePerf per-thread file
@@ -241,8 +248,8 @@ class MeshDecoder:
         The decode program has no cross-shard communication (restart
         segments and images are independent), so by default the steady
         state runs on the PROCESS-LOCAL sub-mesh: each host jits and
-        launches its own program over its own chips, and nothing crosses
-        DCN per batch. Only the end-of-run metrics collective
+        launches its own program over its own devices, and nothing crosses
+        the host network per batch. Only the end-of-run metrics collective
         (multihost.allreduce_metrics) is multi-controller. Pass
         ``global_arrays=True`` to instead build globally-sharded arrays
         over the full mesh (jax.make_array_from_process_local_data) — only
@@ -252,10 +259,7 @@ class MeshDecoder:
 
         Returns (per_local_image_channels, pitches, err): channels as host
         numpy arrays for this process's images."""
-        import numpy as _np
         from ..ops import device_entropy as de
-        from ..pipeline import bucket_batch, output_pitches
-        from ..core.zigzag import dezigzag
 
         params = params or DecodeParams()
         fmt = OutputFormat(params.output_format)
@@ -280,15 +284,10 @@ class MeshDecoder:
         padded = list(plist) + [plist[0]] * (local_batch - n_local)
         per_dev = local_batch // dev_local
 
-        geo = de._geometry_rows(padded, 0)
-        lanes_per_image = de._bucket(max(g[0] for g in geo), 128)
         geom_local = de.GroupGeometry.from_params(p0, per_dev)
-        packed = de.pack_segments(padded, geom_local.total_blocks,
-                                  lanes_per_image=lanes_per_image,
-                                  local_batch=per_dev)
-        max_steps = de.max_steps_bound(geom_local, packed)
-        n_lanes_dev = packed.n_lanes // dev_local
-        R_local = packed.n_lanes // 128
+        dense, lanes, n_words, max_steps = _pack_mesh_lanes(
+            padded, dev_local, per_dev, geom_local)
+        n_lanes_dev = len(lanes["word_off"]) // dev_local
 
         crop = params.crop_rectangle
         if crop is not None and not (0 < crop.width <= p0.picture_width
@@ -296,19 +295,9 @@ class MeshDecoder:
             crop = None
         crop_key = (crop.left, crop.top, crop.right, crop.bottom) if crop else None
         fn = _sharded_wave_decode(work_mesh, geom_local, n_lanes_dev,
-                                  packed.n_words, max_steps,
+                                  n_words, max_steps,
                                   p0.chroma_subsampling, p0.picture_width,
                                   p0.picture_height, fmt, crop_key)
-
-        qy_rows, qu_rows, qv_rows = [], [], []
-        for p in padded:
-            for rows, ci in ((qy_rows, 0), (qu_rows, 1), (qv_rows, 2)):
-                if ci < p.num_components:
-                    qid = p.components[ci].quantiser_table_selector
-                    rows.append(dezigzag(
-                        p.quantiser_tables[qid].astype(_np.int32)))
-                else:
-                    rows.append(_np.ones(64, _np.int32))
         tables = de.DeviceScanTables.from_params(p0)
 
         def globalize(local, spec):
@@ -319,16 +308,11 @@ class MeshDecoder:
             return make_array_from_process_local_data(sh, local)
 
         lane = P("data")
-        args = (
-            globalize(packed.words, lane),
-            globalize(packed.img_base.reshape(R_local, 128), lane),
-            globalize(packed.mcu_start.reshape(R_local, 128), lane),
-            globalize(packed.mcu_count.reshape(R_local, 128), lane),
-            tables.lentab, tables.values,
-            globalize(_np.stack(qy_rows), lane),
-            globalize(_np.stack(qu_rows), lane),
-            globalize(_np.stack(qv_rows), lane),
-        )
+        args = ([globalize(dense, lane)]
+                + [globalize(lanes[k], lane) for k in
+                   ("word_off", "img_base", "mcu_start", "mcu_count")]
+                + [tables.lentab, tables.values]
+                + [globalize(q, lane) for q in quant_rows(plist, local_batch)])
         out = fn(*args)
         outs, err = out[:-1], out[-1]
         pitches = output_pitches(p0.chroma_subsampling, p0.picture_width,
@@ -340,7 +324,7 @@ class MeshDecoder:
         def local_rows(arr):
             shards = sorted(arr.addressable_shards,
                             key=lambda s: s.index[0].start or 0)
-            return _np.concatenate([_np.asarray(s.data) for s in shards])
+            return np.concatenate([np.asarray(s.data) for s in shards])
 
         host_chans = [local_rows(a) for a in outs]
         per_image = []
@@ -365,10 +349,7 @@ class MeshDecoder:
         """Decode one group fully on-device, sharded over the 'data' axis:
         per-image-uniform lane packing, shard_map(wave + transform)."""
         from ..ops import device_entropy as de
-        from ..pipeline import bucket_batch, output_pitches
-        from ..core.zigzag import dezigzag
         from ..types import LazyChannel
-        import numpy as _np
 
         fmt = OutputFormat(params.output_format)
         p0 = plist[0]
@@ -380,36 +361,19 @@ class MeshDecoder:
         padded = list(plist) + [plist[0]] * (batch - n)
         local_batch = batch // n_data
 
-        geo = de._geometry_rows(padded, 0)
-        lanes_per_image = de._bucket(max(g[0] for g in geo), 128)
         geom_local = de.GroupGeometry.from_params(p0, local_batch)
-        packed = de.pack_segments(padded, geom_local.total_blocks,
-                                  lanes_per_image=lanes_per_image,
-                                  local_batch=local_batch)
-        max_steps = de.max_steps_bound(geom_local, packed)
-        n_lanes_local = packed.n_lanes // n_data
-        R = packed.n_lanes // 128
+        dense, lanes, n_words, max_steps = _pack_mesh_lanes(
+            padded, n_data, local_batch, geom_local)
+        n_lanes_local = len(lanes["word_off"]) // n_data
 
         fn = _sharded_wave_decode(self.mesh, geom_local, n_lanes_local,
-                                  packed.n_words, max_steps,
+                                  n_words, max_steps,
                                   p0.chroma_subsampling, p0.picture_width,
                                   p0.picture_height, fmt, crop_key)
-
-        qy_rows, qu_rows, qv_rows = [], [], []
-        for p in padded:
-            for rows, ci in ((qy_rows, 0), (qu_rows, 1), (qv_rows, 2)):
-                if ci < p.num_components:
-                    qid = p.components[ci].quantiser_table_selector
-                    rows.append(dezigzag(
-                        p.quantiser_tables[qid].astype(_np.int32)))
-                else:
-                    rows.append(_np.ones(64, _np.int32))
         tables = de.DeviceScanTables.from_params(p0)
-        out = fn(packed.words, packed.img_base.reshape(R, 128),
-                 packed.mcu_start.reshape(R, 128),
-                 packed.mcu_count.reshape(R, 128),
-                 tables.lentab, tables.values,
-                 _np.stack(qy_rows), _np.stack(qu_rows), _np.stack(qv_rows))
+        out = fn(dense, lanes["word_off"], lanes["img_base"],
+                 lanes["mcu_start"], lanes["mcu_count"],
+                 tables.lentab, tables.values, *quant_rows(plist, batch))
         outs, err = out[:-1], out[-1]
         self.last_error_flags.append(err)
         pitches = output_pitches(p0.chroma_subsampling, p0.picture_width,

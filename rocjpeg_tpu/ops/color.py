@@ -9,7 +9,7 @@ at :76-78):
     B = Y + 1.8556*(U-128)
 
 This framework uses 16-bit fixed-point int32 arithmetic with round-half-up,
-which (a) is bit-identical across numpy / XLA:CPU / XLA:TPU — float FMA
+which (a) is bit-identical across numpy / XLA:CPU / XLA:GPU — float FMA
 fusion is compiler-dependent, so a float path could not promise cross-
 platform exactness — and (b) matches the reference's real-valued formula
 within 1 LSB, quantified EXHAUSTIVELY (tests/test_color_exhaustive.py):

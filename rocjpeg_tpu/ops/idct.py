@@ -6,18 +6,17 @@ Loeffler-Lightenberg-Moshovitz 8-point IDCT with the standard 13-bit scaled
 constants — the same arithmetic contract as libjpeg's "islow" path, so
 decoded luma is bit-identical to the CPU JPEG ecosystem, and, because every
 operation is int32 add/mul/shift, results are bit-identical across numpy,
-XLA:CPU, and XLA:TPU.
+XLA:CPU, and XLA:GPU.
 
 The function is written against an array-namespace parameter ``xp`` (numpy
-or jax.numpy): the golden CPU oracle and the TPU pipeline execute the very
+or jax.numpy): the golden CPU oracle and the device pipeline execute the very
 same expression graph, making the bit-exactness tests meaningful rather than
 circular at the algorithm level (independent validation against PIL/libjpeg
 lives in tests/test_golden.py).
 
 Layout contract: blocks are (..., 8, 8) int32/int16 natural-order coefficient
 matrices (row-major frequency order); output is (..., 8, 8) uint8 samples.
-All elementwise — maps onto the TPU VPU; a Pallas fusion of
-dequant+IDCT+layout lives in rocjpeg_tpu/kernels/.
+All elementwise integer work, which XLA fuses on any backend.
 """
 
 from __future__ import annotations

@@ -13,7 +13,7 @@ kernels (src/rocjpeg_hip_kernels.h:44-302) as array transforms:
   shares U/V between 2 horizontal pixels.
 
 All functions take an array-namespace ``xp`` (numpy | jax.numpy) so the CPU
-golden decoder and the TPU pipeline share one definition.
+golden decoder and the device pipeline share one definition.
 """
 
 from __future__ import annotations

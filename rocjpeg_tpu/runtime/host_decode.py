@@ -1,7 +1,7 @@
 """Host entropy-decode backend selection.
 
 The production host path is the C++ extension (csrc/, loaded via ctypes as
-``rocjpeg_tpu.runtime.native``) — the TPU-native equivalent of the
+``rocjpeg_tpu.runtime.native``) — the equivalent of the
 reference's native CPU front-end (its parser, src/rocjpeg_parser.cpp) plus
 the entropy decode its ASIC does in silicon. The pure-Python decoder
 (core/entropy.py) is the always-available fallback and the correctness
@@ -19,16 +19,26 @@ import numpy as np
 from ..core import entropy
 from ..core.bitstream import JpegStreamParams
 
-try:
-    from . import native as _native
-    NATIVE_AVAILABLE = _native.AVAILABLE
-except Exception:  # pragma: no cover - extension not built
-    _native = None
-    NATIVE_AVAILABLE = False
+from . import native as _native
+
+NATIVE_AVAILABLE = _native.AVAILABLE
 
 
 def backend_name() -> str:
     return "native" if NATIVE_AVAILABLE else "python"
+
+
+def require_native() -> None:
+    """Raise RocJpegError(NOT_INITIALIZED) unless the native library and
+    its index walker loaded. The device path needs both (without the walker
+    DRI=0 images would silently decode on the host), so accelerator
+    sessions call this instead of degrading to the Python fallback."""
+    if native_index_module() is None:
+        from ..status import RocJpegError, Status
+        raise RocJpegError(
+            Status.NOT_INITIALIZED,
+            "native host library unavailable: "
+            f"{_native.LOAD_ERROR or 'index walker missing'}")
 
 
 def native_pack_module():

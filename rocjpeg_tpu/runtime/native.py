@@ -136,7 +136,12 @@ _LIB_PATH = os.environ.get("ROCJPEG_HOST_LIB") or os.path.join(
     os.path.dirname(os.path.abspath(__file__)), "librocjpeg_host.so")
 
 
+# Why the library is absent, when it is (the build's or the loader's error).
+LOAD_ERROR = None
+
+
 def _load():
+    global LOAD_ERROR
     if not os.path.exists(_LIB_PATH):
         try:
             import importlib.util
@@ -148,7 +153,8 @@ def _load():
             mod = importlib.util.module_from_spec(spec)
             spec.loader.exec_module(mod)
             mod.build(verbose=False)
-        except Exception:
+        except Exception as exc:  # no compiler, compile error, ...
+            LOAD_ERROR = f"building {_LIB_PATH} failed: {exc!r}"
             return None
     try:
         lib = ctypes.CDLL(_LIB_PATH)
@@ -224,7 +230,8 @@ def _load():
                 ctypes.c_int64]
             lib.rjt_lane_geometry.restype = None
         return lib
-    except OSError:
+    except OSError as exc:
+        LOAD_ERROR = f"loading {_LIB_PATH} failed: {exc}"
         return None
 
 

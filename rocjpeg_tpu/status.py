@@ -4,7 +4,7 @@ Mirrors the reference C API's ``RocJpegStatus`` enum (reference:
 ``api/rocjpeg.h:53-67``) and its exception-to-status translation at the API
 edge (``src/rocjpeg_api.cpp:168-174``, ``src/rocjpeg_api_decoder_handle.h:77``).
 
-The TPU-native framework is Python-first, so errors surface both ways:
+The framework is Python-first, so errors surface both ways:
 raise :class:`RocJpegError` (carrying a :class:`Status`) from the object API,
 and return :class:`Status` from the C-style functional API in
 ``rocjpeg_tpu.capi``.

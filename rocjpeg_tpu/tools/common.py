@@ -46,7 +46,7 @@ def build_arg_parser(description: str, batched: bool = False,
                     help="output file prefix to save decoded images")
     ap.add_argument("-d", "--device", type=int, default=0, help="device id")
     ap.add_argument("-be", "--backend", type=int, default=0,
-                    help="backend: 0=hardware(TPU), 1=hybrid")
+                    help="backend: 0=hardware(device), 1=hybrid")
     ap.add_argument("-fmt", "--format", default="native",
                     choices=sorted(FMT_NAMES),
                     help="output format")

@@ -20,7 +20,7 @@ from . import common
 
 
 def main(argv=None) -> int:
-    args = common.build_arg_parser("Decode JPEG images on TPU").parse_args(argv)
+    args = common.build_arg_parser("Decode JPEG images on the device").parse_args(argv)
     params = common.parse_decode_params(args)
     paths = common.get_file_paths(args.input)
     if not paths:

@@ -18,7 +18,7 @@ from . import common
 
 
 def main(argv=None) -> int:
-    args = common.build_arg_parser("Batched JPEG decode on TPU",
+    args = common.build_arg_parser("Batched JPEG decode on the device",
                                    batched=True).parse_args(argv)
     params = common.parse_decode_params(args)
     paths = common.get_file_paths(args.input)

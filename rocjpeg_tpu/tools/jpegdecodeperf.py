@@ -3,7 +3,7 @@
 batch size over a corpus, files partitioned across threads (:245-252),
 aggregated images/s and Mpixels/s (:260-300).
 
-On TPU the threads overlap host-side parse+entropy with device compute
+On the device path the threads overlap host-side parse+entropy with device compute
 (the reference's rationale — one serialized handle per thread — maps to one
 shared XLA stream fed by several host threads). A ``--mesh`` flag shards
 each batch across all local devices via the dist layer (pod-scale analog).

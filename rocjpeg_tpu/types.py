@@ -1,6 +1,6 @@
 """Public enums and parameter structs.
 
-TPU-native re-expression of the reference C API types (``api/rocjpeg.h``):
+Python re-expression of the reference C API types (``api/rocjpeg.h``):
 
 - :class:`ChromaSubsampling`  ← ``RocJpegChromaSubsampling`` (rocjpeg.h:86-94)
 - :class:`OutputFormat`       ← ``RocJpegOutputFormat``      (rocjpeg.h:124-141)
@@ -57,7 +57,7 @@ class Backend(enum.IntEnum):
     never-implemented HYBRID (rocjpeg.h:176-179; src/rocjpeg_decoder.cpp:74-91
     returns NOT_IMPLEMENTED for HYBRID).
 
-    Here HARDWARE maps to the TPU compute path and HYBRID stays
+    Here HARDWARE maps to the device compute path and HYBRID stays
     NOT_IMPLEMENTED for drop-in behavioral parity.
     """
 
@@ -104,8 +104,8 @@ class LazyChannel:
     """A per-image view into a batched device array, sliced on first use.
 
     Decoding returns whole-batch device arrays; materializing ``arr[i]`` per
-    image per channel eagerly costs one device dispatch each (~100us over a
-    remote runtime — tens of ms per batch). This proxy defers the slice
+    image per channel eagerly costs one device dispatch each (tens of
+    dispatches per batch). This proxy defers the slice
     until the channel is actually read. It quacks like an array where the
     framework's consumers need it: ``np.asarray``, ``block_until_ready``,
     ``shape``/``dtype``, indexing.
@@ -191,17 +191,17 @@ class ImageInfo:
 
 @dataclasses.dataclass(frozen=True)
 class TpuDecodeSpec:
-    """Per-device decode capability spec — the TPU-native analog of the
-    per-arch ``VcnJpegSpec`` table (src/rocjpeg_vaapi_decoder.cpp:294-305,
-    struct at src/rocjpeg_vaapi_decoder.h:71-75).
+    """Per-device decode capability spec — the analog of the per-arch
+    ``VcnJpegSpec`` table (src/rocjpeg_vaapi_decoder.cpp:294-305, struct at
+    src/rocjpeg_vaapi_decoder.h:71-75). (The class name is kept for API
+    compatibility.)
 
     ``num_decode_lanes`` plays the role of ``num_jpeg_cores``: it is the
     batch-chunk width used by ``decode_batched`` (the reference chunks by
-    cores, src/rocjpeg_decoder.cpp:208-218; we chunk by the lane count that
-    saturates one chip's compute pipeline).
+    cores, src/rocjpeg_decoder.cpp:208-218).
     """
 
-    name: str = "tpu"
+    name: str
     num_decode_lanes: int = 32
     can_convert_to_rgb: bool = True  # software path: always
     can_roi_decode: bool = True  # ROI slicing fused into the layout stage
@@ -211,32 +211,28 @@ class TpuDecodeSpec:
     max_height: int = 16384
 
 
-# Per-generation capability table — the analog of the per-arch VcnJpegSpec
-# constants compiled into the reference (src/rocjpeg_vaapi_decoder.cpp:294-305,
-# selected by gfx arch at InitializeDecoder, :365-422). Keyed by substring of
-# ``jax.Device.device_kind``; checked in order, first match wins. All
-# capabilities are software here, so only ``num_decode_lanes`` (the
-# batch-width that saturates one chip — scales with HBM bandwidth, the
-# decode pipeline's bottleneck resource) varies by generation.
-_TPU_SPEC_TABLE = (
-    ("TPU v6", TpuDecodeSpec(name="TPU v6e", num_decode_lanes=48)),
-    ("TPU v5p", TpuDecodeSpec(name="TPU v5p", num_decode_lanes=64)),
-    ("TPU v5", TpuDecodeSpec(name="TPU v5e", num_decode_lanes=32)),
-    ("TPU v4", TpuDecodeSpec(name="TPU v4", num_decode_lanes=32)),
-    ("TPU v3", TpuDecodeSpec(name="TPU v3", num_decode_lanes=24)),
-    ("TPU v2", TpuDecodeSpec(name="TPU v2", num_decode_lanes=16)),
-)
-
-_CPU_SPEC = TpuDecodeSpec(name="cpu-interpret", num_decode_lanes=8)
+# Per-platform capability rows, keyed by ``jax.Device.platform`` — the
+# analog of the per-arch VcnJpegSpec constants compiled into the reference
+# (src/rocjpeg_vaapi_decoder.cpp:294-305, selected at InitializeDecoder,
+# :365-422). All capabilities are software here, so only the chunk width
+# varies. The GPU's 32 is untuned: carried over, not measured (ROADMAP C5).
+SPEC_TABLE = {
+    "gpu": TpuDecodeSpec(name="gpu", num_decode_lanes=32),
+    "cpu": TpuDecodeSpec(name="cpu", num_decode_lanes=8),
+}
 
 
 def spec_for_device(device) -> TpuDecodeSpec:
     """Capability spec for a ``jax.Device`` — the GetCurrentVcnJpegSpec
-    lookup (vaapi_decoder.cpp:412-417) re-keyed on TPU generation."""
-    kind = getattr(device, "device_kind", "") or ""
-    for prefix, spec in _TPU_SPEC_TABLE:
-        if kind.startswith(prefix):
-            return spec
-    if getattr(device, "platform", "") == "cpu":
-        return _CPU_SPEC
-    return TpuDecodeSpec(name=kind or str(getattr(device, "platform", "tpu")))
+    lookup (vaapi_decoder.cpp:412-417) keyed on the device's platform and
+    named after its ``device_kind``. A platform without a row is an error
+    (RocJpegError NOT_INITIALIZED), not a default."""
+    from .status import RocJpegError, Status
+
+    platform = getattr(device, "platform", "")
+    spec = SPEC_TABLE.get(platform)
+    if spec is None:
+        raise RocJpegError(Status.NOT_INITIALIZED,
+                           f"no decode spec for platform {platform!r}")
+    kind = getattr(device, "device_kind", "") or platform
+    return dataclasses.replace(spec, name=kind)

@@ -47,7 +47,8 @@ def test_banked_overflow_raises():
     assert ei.value.status == Status.JPEG_NOT_SUPPORTED
 
 
-def _check_wave_banked(blobs, virtual=False):
+def _check_wave_banked(blobs, virtual=False, run_wave=None):
+    run_wave = run_wave or de.decode_coefficients_on_device
     plist = [JpegStreamParser().parse(b) for b in blobs]
     tables, bank_of = de.DeviceScanTables.from_params_banked(plist)
     assert tables.n_banks > 1, "test requires a mixed group"
@@ -56,9 +57,9 @@ def _check_wave_banked(blobs, virtual=False):
         packed, dc_flat, lane_of_mcu = de.pack_virtual_segments(
             plist, geom0.total_blocks, 100, bank_of=bank_of)
     else:
-        packed = de.pack_segments(plist, geom0.total_blocks, dense=True,
+        packed = de.pack_segments(plist, geom0.total_blocks,
                                   bank_of=bank_of)
-    out, err, geom = de.decode_coefficients_on_device(plist, tables, packed)
+    out, err, geom = run_wave(plist, tables, packed)
     assert not bool(np.asarray(err).any())
     comps = de.unflatten_coefficients(out, geom, plist[0])
     from rocjpeg_tpu.pipeline import _mcu_maps
@@ -82,13 +83,13 @@ def test_banked_wave_virtual_restarts():
     _check_wave_banked(_mixed_blobs(ri=0), virtual=True)
 
 
-def test_banked_wave_pallas_interpret(monkeypatch):
-    """The production Pallas kernel's banked select, under the interpreter."""
-    monkeypatch.setenv("ROCJPEG_TPU_WAVE", "pallas-interpret")
+def test_banked_wave_pallas_interpret():
+    """The GPU wave kernel's banked table gathers, under the interpreter."""
+    from test_wave_pallas import run_kernel_interpret
     blobs = [encoder.encode_planes(
         encoder.random_planes("420", 64, 48, seed=s), "420",
         restart_interval=1, table_variant=s % 2) for s in range(2)]
-    _check_wave_banked(blobs)
+    _check_wave_banked(blobs, run_wave=run_kernel_interpret)
 
 
 def test_api_mixed_tables_one_wave_group():

@@ -46,22 +46,23 @@ def test_mixed_resolution_batched_decode():
 
 
 def test_spec_for_device_table():
-    """Per-generation capability lookup (the VcnJpegSpec-table analog,
-    reference vaapi_decoder.cpp:294-305)."""
+    """Per-platform capability lookup (the VcnJpegSpec-table analog,
+    reference vaapi_decoder.cpp:294-305): one row per platform, named after
+    the device kind."""
     import jax
     from rocjpeg_tpu import api
     from rocjpeg_tpu.types import spec_for_device
 
     spec = spec_for_device(jax.devices()[0])  # cpu under tests
-    assert spec.name == "cpu-interpret" and spec.num_decode_lanes == 8
+    assert spec.name == "cpu" and spec.num_decode_lanes == 8
 
     class FakeDev:
-        device_kind = "TPU v5 lite"
-        platform = "tpu"
+        device_kind = "NVIDIA H100 80GB HBM3"
+        platform = "gpu"
 
     s = spec_for_device(FakeDev())
-    assert s.name == "TPU v5e" and s.num_decode_lanes == 32
+    assert s.name == "NVIDIA H100 80GB HBM3" and s.num_decode_lanes == 32
     assert s.can_convert_to_rgb and s.can_roi_decode
     assert (s.max_width, s.max_height) == (16384, 16384)
     # Decoder picks up the device spec automatically.
-    assert api.Decoder().spec.name == "cpu-interpret"
+    assert api.Decoder().spec.name == "cpu"

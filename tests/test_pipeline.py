@@ -1,4 +1,4 @@
-"""TPU/XLA pipeline tests: the jitted device path must be bit-exact vs the
+"""XLA pipeline tests: the jitted device path must be bit-exact vs the
 CPU golden decoder across the output-format matrix, and the session API must
 mirror the reference C API semantics."""
 

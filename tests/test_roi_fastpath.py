@@ -1,7 +1,7 @@
 """ROI fast path: crops decode only the ROI-intersecting restart segments.
 
 The reference decodes only the crop in hardware on MI300
-(vaapi_decoder.cpp:640-658); the TPU analog packs only the segments whose
+(vaapi_decoder.cpp:640-658); the wave analog packs only the segments whose
 MCU rows intersect the crop — real restart segments (byte stuffing is
 context-free, DC resets at RSTn) and virtual ones (the index pass knows
 every lane's geometry) both support it. Pixels outside the packed band
@@ -50,8 +50,8 @@ def test_roi_packs_only_intersecting_lanes(ri):
     full_range = None
     roi_range = (3 * p.mcus_per_row, 7 * p.mcus_per_row)  # rows 3..7 of 10
     if ri:
-        full = de.pack_segments([p], geom.total_blocks, dense=True)
-        part = de.pack_segments([p], geom.total_blocks, dense=True,
+        full = de.pack_segments([p], geom.total_blocks)
+        part = de.pack_segments([p], geom.total_blocks,
                                 mcu_range=roi_range)
     else:
         full, _, _ = de.pack_virtual_segments([p], geom.total_blocks, 60,

@@ -1,7 +1,7 @@
 """Volume soak: a time-boxed sweep of generator-varied hostile and clean
 images through the DEFAULT decode path, asserting typed-error-or-bit-exact
-for every single input (VERDICT r04 #8 — the volume pass behind the
-per-file fuzz suites in test_fuzz.py / test_native_fuzz.py).
+for every single input (the volume pass behind the per-file fuzz suites
+in test_fuzz.py / test_native_fuzz.py).
 
 Every iteration draws a fresh configuration (chroma subsampling, odd
 dimensions, restart interval incl. DRI=0, table variant, optimized tables)
@@ -14,8 +14,9 @@ and a mutation (none / truncation / bit flips / embedded marker), then:
     failure is a status code, rocjpeg_api.cpp:168-174);
   - mixed clean+mutated batches exercise per-image error attribution.
 
-Time budget: ROCJPEG_TPU_SOAK_SECS (default 45 s here / CI; a recorded
-long run lives in SOAK_r05.json via ``python -m tests.test_soak``).
+Time budget: ROCJPEG_TPU_SOAK_SECS (default 45 s here / CI; a long run
+writes its stats to SOAK_OUT, default soak.json, via
+``python -m tests.test_soak``).
 """
 
 import json
@@ -177,7 +178,7 @@ if __name__ == "__main__":
     budget = float(os.environ.get("ROCJPEG_TPU_SOAK_SECS", "300"))
     stats = run_soak(budget, verbose=True)
     out = {"budget_s": budget, **stats}
-    path = os.environ.get("SOAK_OUT", "SOAK_r05.json")
+    path = os.environ.get("SOAK_OUT", "soak.json")
     with open(path, "w") as f:
         json.dump(out, f, indent=1)
     print(json.dumps(out))

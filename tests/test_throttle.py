@@ -1,8 +1,8 @@
 """In-flight device-program throttle accounting.
 
-The runtime stalls when more than two wave programs queue on the device
-(kernels/wave_pallas.py); the Decoder therefore RESERVES a slot before
-every dispatch and pairs each reservation with a backpressure token.
+The Decoder keeps at most two device programs in flight (enough to overlap
+host and device work, and a bound on in-flight device memory); it
+therefore RESERVES a slot before every dispatch and pairs each reservation with a backpressure token.
 These tests pin the accounting: the bound holds under concurrent callers,
 reservations never leak on error paths, and synchronize() drains to zero.
 """

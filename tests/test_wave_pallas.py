@@ -1,29 +1,48 @@
-"""Production Pallas wave kernel under the Pallas interpreter (CPU).
+"""The GPU wave kernel (Pallas, Triton route) under the Pallas interpreter.
 
-Pins the TPU kernel's emission semantics bit-exactly to the host entropy
-oracle across the CSS x restart x corrupt-stream matrix, without TPU
-hardware. This is the correctness coverage for kernels/wave_pallas.py —
-the jnp wave is covered by tests/test_device_entropy.py; if the two ever
-diverge, one of the suites fails.
+Pins kernels/wave_triton.py bit-exactly to the host entropy oracle
+(core/entropy.py) across the CSS x restart x long-code x corrupt-stream
+matrix, on the CPU — and to the plain ``jnp`` wave it replaces on the GPU,
+coefficients and error flags alike (tests/test_device_entropy.py covers the
+``jnp`` wave against the oracle).
 
-The interpreter executes the kernel's while loop round-by-round in Python,
-so wall time scales with the longest lane's symbol count: the images here
-are deliberately low-entropy (smooth gradients -> few AC coefficients) and
+The interpreter executes the kernel's while loop step by step, so wall time
+scales with the longest lane's symbol count: the images here are
+deliberately low-entropy (smooth gradients -> few AC coefficients) and
 small. Dense/noisy payloads are covered by one long-code case.
 """
 
+import jax
 import numpy as np
 import pytest
 
 from rocjpeg_tpu.core import entropy
 from rocjpeg_tpu.core.bitstream import JpegStreamParser
+from rocjpeg_tpu.kernels import wave_triton
 from rocjpeg_tpu.ops import device_entropy as de
 from rocjpeg_tpu.testing import encoder
 
 
-@pytest.fixture(autouse=True)
-def _interpret_backend(monkeypatch):
-    monkeypatch.setenv("ROCJPEG_TPU_WAVE", "pallas-interpret")
+def run_kernel_interpret(plist, tables, packed):
+    """(coeffs, err, geom) of the Triton wave kernel run under the
+    interpreter, and the same of the jnp wave on identical inputs."""
+    geom = de.GroupGeometry.from_params(plist[0], len(plist))
+    max_steps = de.max_steps_bound(geom, packed)
+    args = [packed.dense, packed.word_off, packed.img_base,
+            packed.mcu_start, packed.mcu_count, tables.lentab, tables.values]
+    if tables.n_banks > 1:
+        args.append(packed.lane_bank)
+    kern = wave_triton.build_wave_kernel(geom, packed.n_lanes,
+                                         packed.n_words, max_steps,
+                                         tables.n_banks, interpret=True)
+    out, err = jax.jit(kern)(*args)
+    ref_out, ref_err, _ = de.decode_coefficients_on_device(plist, tables,
+                                                           packed)
+    size = geom.batch * geom.total_blocks * 64
+    np.testing.assert_array_equal(np.asarray(out)[:size],
+                                  np.asarray(ref_out)[:size])
+    np.testing.assert_array_equal(np.asarray(err), np.asarray(ref_err))
+    return out, err, geom
 
 
 def smooth_planes(css, width, height, seed=0):
@@ -51,7 +70,7 @@ def _check_wave(blobs):
     tables = de.DeviceScanTables.from_params(plist[0])
     geom0 = de.GroupGeometry.from_params(plist[0], len(plist))
     packed = de.pack_segments(plist, geom0.total_blocks)
-    out, err, geom = de.decode_coefficients_on_device(plist, tables, packed)
+    out, err, geom = run_kernel_interpret(plist, tables, packed)
     assert not bool(np.asarray(err).any())
     comps = de.unflatten_coefficients(out, geom, plist[0])
     for i, p in enumerate(plist):
@@ -105,5 +124,34 @@ def test_pallas_wave_detects_corrupt_scan():
         packed = de.pack_segments([p], geom0.total_blocks)
     except Exception:
         return  # host-side segmentation already rejected it — fine
-    _, err, _ = de.decode_coefficients_on_device([p], tables, packed)
+    _, err, _ = run_kernel_interpret([p], tables, packed)
     assert bool(np.asarray(err).any())
+
+
+@pytest.mark.gpu
+def test_pallas_wave_compiled_on_gpu(gpu_device):
+    """The kernel as compiled for the card (not interpreted) against the
+    ``jnp`` wave on the same card."""
+    blobs = [encoder.encode_planes(encoder.random_planes("420", 256, 192,
+                                                         seed=s),
+                                   "420", restart_interval=2,
+                                   table_variant=s % 2) for s in range(4)]
+    plist = [JpegStreamParser().parse(b) for b in blobs]
+    tables, bank_of = de.DeviceScanTables.from_params_banked(plist)
+    geom = de.GroupGeometry.from_params(plist[0], len(plist))
+    packed = de.pack_segments(plist, geom.total_blocks, bank_of=bank_of)
+    max_steps = de.max_steps_bound(geom, packed)
+    args = [packed.dense, packed.word_off, packed.img_base,
+            packed.mcu_start, packed.mcu_count, tables.lentab,
+            tables.values, packed.lane_bank]
+    size = geom.batch * geom.total_blocks * 64
+    with jax.default_device(gpu_device):
+        kern = wave_triton.build_wave_kernel(
+            geom, packed.n_lanes, packed.n_words, max_steps, tables.n_banks)
+        out, err = jax.jit(kern)(*args)
+        ref_out, ref_err = de._compiled_wave(
+            "jnp", geom, packed.n_lanes, packed.n_words, max_steps,
+            tables.n_banks)(*args)
+    np.testing.assert_array_equal(np.asarray(out)[:size],
+                                  np.asarray(ref_out)[:size])
+    np.testing.assert_array_equal(np.asarray(err), np.asarray(ref_err))

@@ -40,13 +40,15 @@ Baseline (sequential DCT, 8-bit) JPEGs only — progressive, lossless,
 arithmetic-coded, and 12-bit streams are rejected at parse, and 16-bit
 quantization tables at parse (reference parser.cpp:230-233).
 
-## Per-generation decode capabilities
+## Per-platform decode capabilities
 
 The analog of the reference's VcnJpegSpec table
-(src/rocjpeg_vaapi_decoder.cpp:294-305). `decode lanes` plays the role of
-`num_jpeg_cores`: the batch-chunk width that saturates one chip.
+(src/rocjpeg_vaapi_decoder.cpp:294-305), one row per JAX platform; a
+session names its spec after the device's `device_kind`. `decode lanes`
+plays the role of `num_jpeg_cores`: the batch-chunk width of one decode
+call. The GPU row's value is untuned (not yet measured).
 
-| Device | Decode lanes | RGB convert | ROI decode | Min | Max |
+| Platform | Decode lanes | RGB convert | ROI decode | Min | Max |
 |---|---|---|---|---|---|
 """
 
@@ -65,8 +67,7 @@ Either way the full resolution range above applies.
 
 def main():
     rows = []
-    specs = list(types._TPU_SPEC_TABLE) + [("cpu", types._CPU_SPEC)]
-    for _key, s in specs:
+    for s in types.SPEC_TABLE.values():
         rows.append(
             f"| {s.name} | {s.num_decode_lanes} | "
             f"{'yes' if s.can_convert_to_rgb else 'no'} | "
